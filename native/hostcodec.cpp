@@ -1,6 +1,6 @@
 // hostcodec — native host-side codec utilities for polar_codes_tpu.
 //
-// The TPU compute path is JAX/XLA; this library covers the host-side work
+// The device compute path is JAX/XLA; this library covers the host-side work
 // the reference implements in C++ (BitContainer packing/injection,
 // src/polarcode/bitcontainer.cpp; CRC engines,
 // src/polarcode/errordetection/*.cpp): packed-byte <-> bit conversions with

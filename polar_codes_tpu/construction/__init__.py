@@ -1,8 +1,8 @@
 """Code construction: frozen-bit selection for polar codes.
 
 Host-side (NumPy) by design: construction runs once per code, its output (the
-frozen set / masks) is baked into the traced TPU programs as static data —
-the TPU-native analogue of the reference's construction-time tree
+frozen set / masks) is baked into the traced programs as static data —
+the JAX analogue of the reference's construction-time tree
 specialization (/root/reference/src/polarcode/construction/).
 """
 

@@ -7,7 +7,7 @@ blocks; only blocks whose CRC fails are re-decoded with the list decoder.
 "Mixed" = int8 fast pass + float32 list pass (the reference's default
 precision 832).
 
-TPU-first batching: the reference re-decodes one failing block at a time;
+Batched form: the reference re-decodes one failing block at a time;
 here the fast pass runs on the whole [batch, N] matrix, the CRC-fail mask
 is pulled to the host, failing rows are compacted into the smallest
 power-of-2 bucket, and one SCL call decodes them all. Buckets keep the set
@@ -44,11 +44,7 @@ class AdaptiveDecoder:
         detector: Optional[Detector] = None,
         fast_dtype=jnp.float32,
         list_schedule: Optional[Sequence[int]] = None,
-        backend: Optional[str] = None,
     ):
-        # backend=None: each stage auto-selects its own qualified fast
-        # path (utils/backend.py) — the Fast-SSC prefilter and the SCL
-        # stages have different pallas envelopes
         # the adaptive scheme is meaningless without an error detector;
         # the reference attaches CRC32 by default (decoder.cpp makeDecoder)
         self.detector = detector if detector is not None else CRC32()
@@ -71,9 +67,6 @@ class AdaptiveDecoder:
         if list_schedule is None:
             list_schedule = (list_size,) if list_size > 1 else ()
         self.list_schedule = tuple(int(l) for l in list_schedule)
-        # backend="pallas" routes every SCL stage through the fused VMEM
-        # subtree kernels (ops/scl_kernel_bl.py); buckets are padded to the
-        # 128-lane tile inside the decoder, so small rerun buckets work
         self.stages = [
             SCLDecoder(
                 block_length,
@@ -81,7 +74,6 @@ class AdaptiveDecoder:
                 list_size=l,
                 systematic=systematic,
                 detector=self.detector,
-                backend=backend,
             )
             for l in self.list_schedule
         ]
@@ -95,8 +87,7 @@ class AdaptiveDecoder:
         # the jit cache keys on the BUCKET size only (every array shape is
         # padded to it), so each bucket compiles once. A version that
         # gathered/scattered at the exact failure count recompiled the
-        # update ops on almost every call (the count is near-unique) at
-        # ~1 s per remote compile — 60x slower end-to-end.
+        # update ops on almost every call (the count is near-unique).
         self._rerun_fns = [self._make_rerun(s) for s in self.stages]
 
     @staticmethod

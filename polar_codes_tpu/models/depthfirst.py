@@ -7,7 +7,7 @@ and trials remain, the weakest recorded decision is flipped and the frame
 re-decoded (Afisiadis et al. SC-Flip, the reference's Manager explores the
 same flip candidates through its configuration queue).
 
-TPU-first batching: the reference flips one node and re-decodes the suffix
+Batched form: the reference flips one node and re-decodes the suffix
 of one frame; here every trial re-decodes the whole [batch, N] matrix with
 a per-row flip sign injected at the trial's target bit — each row flips
 *its own* t-th weakest decision (argsort of the recorded |decision LLR|).

@@ -1,4 +1,4 @@
-"""Error detection: CRC family + AES-CMAC, TPU-batched via GF(2) affine maps.
+"""Error detection: CRC family + AES-CMAC, batched via GF(2) affine maps.
 
 Capability parity with /root/reference/src/polarcode/errordetection/:
 CRC8 (poly 0x07, init 0, crc8.cpp:18-46), CRC16 CCITT-FALSE (0x1021/0xFFFF,
@@ -8,13 +8,13 @@ bit-level CRCs CRC6 (0x21), CRC11 (0x621), CRC16 (0x1021/init 0 = XMODEM,
 crc16nr.cpp:28), CRC24C (0xB2B117) per TS 38.212, plus AES-CMAC
 (cmac.cpp, RFC 4493) and the always-valid Dummy.
 
-TPU-first design: a CRC over a fixed-length bit block is an affine map over
+Batched design: a CRC over a fixed-length bit block is an affine map over
 GF(2). For each (detector, data length) we derive, once on the host from the
 LFSR state-transition recurrence, a generator matrix G [tail, D] and constant
 g0 [tail] with tail = G.data + g0 (mod 2). On device both checksum
 generation and validity checking become one small batched matmul — this
 replaces the reference's byte-wise table loops and runs over thousands of
-codewords (and all SCL paths) at once on the MXU. Checksum *placement*
+codewords (and all SCL paths) at once. Checksum *placement*
 inside the block reproduces the reference's byte layouts exactly (CRC32
 stored as a little-endian uint32, crc32.cpp:58-66; NR CRCs big-endian with
 zero padding to whole tail bytes, crc6nr.cpp:42-49 / crc11nr.cpp:42-51).

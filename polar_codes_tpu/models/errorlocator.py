@@ -9,7 +9,7 @@ decision LLR would have produced an error. The resulting first-error
 histogram ranks bit channels by actual (not design-model) reliability and
 feeds SCFlip node ranking.
 
-TPU-first: forcing decisions to truth removes the sequential dependency's
+Batched: forcing decisions to truth removes the sequential dependency's
 data-dependence — one batched pass computes every decision LLR under the
 genie, so the whole analysis is a single fused program over [batch, N].
 """

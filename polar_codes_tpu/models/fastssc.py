@@ -6,17 +6,16 @@ fastssc_fip_char.cpp): min-sum f/g recursion over the trace-time-specialized
 tree with Rate-0 / Rate-1 / Repetition / SPC leaf shortcuts, systematic or
 non-systematic output, attached error detector.
 
-TPU-first inversion: the reference walks the tree at runtime per codeword,
+Batched inversion: the reference walks the tree at runtime per codeword,
 vectorizing *within* the codeword on AVX lanes; here the tree walk happens
-once at trace time and every emitted op is batched over [batch, span] with
-the batch axis on the VPU lanes. Hard decisions travel as bipolar {+1,-1}
+once at trace time and every emitted op is batched over [batch, span].
+Hard decisions travel as bipolar {+1,-1}
 floats so combine is a multiply.
 
 Two precision families, mirroring the reference's float/char split:
   dtype=float32 — exact reference semantics.
   dtype=int8    — LLRs quantized to int8; arithmetic in int16 with
-                  saturation to [-127,127] (fi_adds_epi8 semantics),
-                  feeding the TPU's int VPU path.
+                  saturation to [-127,127] (fi_adds_epi8 semantics).
 """
 
 from __future__ import annotations
@@ -32,7 +31,6 @@ from ..ops.butterfly import butterfly_transform
 from .tree import CodeNode, NodeKind, build_tree
 from .detectors import Detector, Dummy
 from .encoder import PolarEncoder
-from ..utils.backend import resolve_backend
 
 
 def _sign(x):
@@ -53,7 +51,6 @@ class FastSSCDecoder:
         systematic: bool = True,
         detector: Optional[Detector] = None,
         dtype=jnp.float32,
-        backend: Optional[str] = None,
     ):
         self.block_length = block_length
         self.frozen = np.sort(np.asarray(frozen_bit_positions, dtype=np.int64))
@@ -66,17 +63,6 @@ class FastSSCDecoder:
         self._encoder = PolarEncoder(
             block_length, self.frozen, systematic=False, detector=Dummy()
         )
-        # backend="pallas": VMEM-resident subtree kernels
-        # (ops/fastssc_kernel.py); int8/char runs its saturating ops on
-        # packed bf16 state (exact value parity — integer values).
-        # backend=None auto-selects the qualified fast path on TPU
-        # (utils/backend.py; reference factory parity, decoder.cpp:54-87).
-        backend = resolve_backend(backend, "fastssc", block_length)
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend}")
-        self.backend = backend
-        self._pallas_fn = None
-        self._PALLAS_TILE = 128
 
     # ---- per-dtype arithmetic ------------------------------------------------
 
@@ -171,21 +157,6 @@ class FastSSCDecoder:
     def decode_to_codeword(self, llr):
         """[..., N] channel LLRs -> [..., N] codeword bits {0,1}."""
         llr = jnp.asarray(llr, dtype=self.dtype)
-        if self.backend == "pallas":
-            if self._pallas_fn is None:
-                from ..ops.fastssc_kernel import build_fs_hybrid_decode
-
-                self._pallas_fn = build_fs_hybrid_decode(
-                    self,
-                    batch_tile=self._PALLAS_TILE,
-                    kernel_span=min(1024, self.block_length),
-                    state_dtype=self.dtype,
-                )
-            lead = llr.shape[:-1]
-            flat = llr.reshape((-1, self.block_length))
-            return self._pallas_fn(flat).reshape(
-                lead + (self.block_length,)
-            )
         bipolar = self._decode_node(self.tree, llr)
         return self._bits01(bipolar)
 

@@ -8,7 +8,7 @@ from the codeword, the surviving `output_positions` are kept in order.
 puncture = gather, depuncture = zero-fill scatter (neutral LLR 0 for the
 punctured positions).
 
-TPU-first: both directions are single static-index gathers/scatters over
+Batched: both directions are single static-index gathers/scatters over
 [..., N] batches — index vectors are baked into the traced program.
 """
 

@@ -21,12 +21,6 @@ per-node beta tensors threaded functionally through the trace):
 Leaves: frozen subtrees return +inf (bits known), rate-1 subtrees return 0
 (no extrinsic). Everything is batched over [..., span]; sweeps unroll at
 trace time (iteration limit is static and small).
-
-backend="pallas" runs the sweeps as fused VMEM-resident kernels
-(ops/scan_kernel.py): ScanDecoder fuses ALL sweeps into one kernel (the
-inter-sweep memory never touches HBM); FastSScanDecoder steps one
-kernel per sweep with the memory packed into an opaque [M, B] buffer,
-because its CRC gate inspects the codeword between sweeps.
 """
 
 from __future__ import annotations
@@ -41,7 +35,6 @@ from ..construction import info_indices
 from ..ops.butterfly import butterfly_transform
 from ..ops.fg import f_minsum
 from .tree import CodeNode, NodeKind, build_tree
-from ..utils.backend import resolve_backend
 from .detectors import Detector, Dummy
 
 
@@ -59,7 +52,6 @@ class ScanDecoder:
         systematic: bool = True,
         detector: Optional[Detector] = None,
         iterations: int = 1,
-        backend: Optional[str] = None,
     ):
         self.block_length = block_length
         self.frozen = np.sort(np.asarray(frozen_bit_positions, dtype=np.int64))
@@ -72,17 +64,6 @@ class ScanDecoder:
             block_length, self.frozen, allowed=self._ALLOWED
         )
         self.dtype = jnp.float32
-        # backend="pallas": all sweeps fused into one VMEM-resident kernel
-        # (ops/scan_kernel.py); the inter-sweep memory never touches HBM.
-        # backend=None resolves via utils/backend.py (measured a wash on
-        # TPU for scan, so auto stays "xla")
-        backend = resolve_backend(backend, "scan", block_length)
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend}")
-        if self.tree.kind != NodeKind.BRANCH:
-            backend = "xla"  # degenerate single-leaf tree
-        self.backend = backend
-        self._pallas_fns: Dict[int, object] = {}
 
     # ---- one sweep ---------------------------------------------------------
 
@@ -123,17 +104,6 @@ class ScanDecoder:
         (scan.h, for iterative demapping/turbo equalization)."""
         llr = jnp.asarray(llr, dtype=jnp.float32)
         sweeps = self.iterations if iterations is None else iterations
-        if self.backend == "pallas":
-            fn = self._pallas_fns.get(sweeps)
-            if fn is None:
-                from ..ops.scan_kernel import build_scan_kernel
-
-                fn = build_scan_kernel(self, sweeps)
-                self._pallas_fns[sweeps] = fn
-            lead = llr.shape[:-1]
-            flat = llr.reshape((-1, self.block_length))
-            beta = fn(flat).reshape(lead + (self.block_length,))
-            return llr + beta, beta
         memory: Dict[int, jnp.ndarray] = {}
         beta = jnp.zeros_like(llr)
         for _ in range(sweeps):
@@ -179,27 +149,10 @@ class FastSScanDecoder(ScanDecoder):
         lead = llr.shape[:-1]
         done = jnp.zeros(lead, dtype=bool)
         best_code = jnp.zeros(llr.shape, dtype=jnp.uint8)
-        step_fn = None
-        mem_buf = None
-        if self.backend == "pallas":
-            # one-sweep-per-call kernel with the inter-sweep memory carried
-            # as an opaque [M, B] buffer (the CRC gate below needs the
-            # codeword between sweeps, so sweeps cannot fuse)
-            step_fn = self._pallas_fns.get("step")
-            if step_fn is None:
-                from ..ops.scan_kernel import build_scan_step_kernel
-
-                step_fn = build_scan_step_kernel(self)
-                self._pallas_fns["step"] = step_fn
         for sweep in range(self.iterations):
-            if step_fn is not None:
-                flat = llr.reshape((-1, self.block_length))
-                beta_flat, mem_buf = step_fn(flat, mem_buf)
-                beta = beta_flat.reshape(llr.shape)
-            else:
-                new_memory: Dict[int, jnp.ndarray] = {}
-                beta = self._sweep_node(self.tree, llr, memory, new_memory)
-                memory = new_memory
+            new_memory: Dict[int, jnp.ndarray] = {}
+            beta = self._sweep_node(self.tree, llr, memory, new_memory)
+            memory = new_memory
             codeword = ((llr + beta) < 0).astype(jnp.uint8)
             if self.detector.tail_bits:
                 ok = self.detector.check(self._extract(codeword))

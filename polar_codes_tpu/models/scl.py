@@ -10,7 +10,7 @@ candidates :428; SPC: parity-adjusted 8-candidate table :498-586; RateZero:
 metric += sum(min(llr,0)) :316-337), and CRC-aided best-path extraction with
 maximum-likelihood fallback (extractBestPath :711-751).
 
-TPU-first inversion of the reference's lazy-copy-on-write path storage
+Functional inversion of the reference's lazy-copy-on-write path storage
 (datapool.txx lazyDuplicate): state is purely functional. Every tree node
 call maps [..., L, span] LLRs -> [..., L, span] bipolar decisions plus a
 path permutation `perm` [..., L] describing how list slots were re-parented
@@ -47,7 +47,6 @@ from ..ops.fg import (
 )
 from .tree import CodeNode, NodeKind, build_tree
 from .detectors import Detector, Dummy
-from ..utils.backend import resolve_backend
 
 _NEG = -1.0e30  # metric of an inactive list slot
 _ACTIVE_THRESHOLD = -1.0e29
@@ -83,6 +82,10 @@ _SPC_T = np.array(
 
 import os as _os
 
+# f32 contractions whose operands are LLRs or path metrics keep full f32
+# precision; at default precision a GPU may round them to TF32.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 _GATHER_MODE = _os.environ.get("SCL_GATHER", "select")
 _TOPK_MODE = _os.environ.get("SCL_TOPK", "sort")
 
@@ -95,11 +98,9 @@ def _top_k(x, k):
     toward the lower index, matching lax.top_k's stable order) and the k
     winners are compacted into their rank slots by one-hot contractions.
     Every op is elementwise or a small matmul, so the whole selection fuses
-    on the VPU/MXU instead of lowering to XLA's small-width sort.
-
-    A/B result (v5e, N=1024 L=8 B=1024): rank = 1.32 ms vs sort = 0.90 ms
-    per batch — XLA's small-width sort is NOT a bottleneck of this decoder;
-    the flag stays for re-testing on other shapes/generations."""
+    instead of lowering to XLA's small-width sort. The contractions run at
+    precision=HIGHEST so metrics pass through exactly (a default-precision
+    f32 dot may round its operands to TF32 on a GPU)."""
     if _TOPK_MODE != "rank":
         return jax.lax.top_k(x, k)
     c = x.shape[-1]
@@ -111,11 +112,11 @@ def _top_k(x, k):
     onehot = (rank[..., :, None] == jnp.arange(k)).astype(jnp.float32)
     vals = jnp.einsum(
         "...c,...ck->...k", x.astype(jnp.float32), onehot,
-        preferred_element_type=jnp.float32,
+        preferred_element_type=jnp.float32, precision=_HIGHEST,
     )
     idx = jnp.einsum(
         "c,...ck->...k", iota.astype(jnp.float32), onehot,
-        preferred_element_type=jnp.float32,
+        preferred_element_type=jnp.float32, precision=_HIGHEST,
     ).astype(jnp.int32)
     return vals.astype(x.dtype), idx
 
@@ -123,15 +124,12 @@ def _top_k(x, k):
 def _take_paths(x, perm, mode=None):
     """Gather [..., L, S] state along the list axis by perm [..., L].
 
-    Never take_along_axis: XLA lowers gathers on TPU through 1-D s32 index
-    vectors that execute ~5-100x slower than either alternative (profiled
-    on v5e). Default is a chain of L lane-wide selects — pure VPU work that
-    fuses into the surrounding elementwise ops with no dot_general operand
-    relayouts (measured ~15% whole-decoder win over the one-hot einsum at
-    N=1024 L=8). `mode="einsum"` forces the one-hot MXU contraction —
-    at scan-over-schedule spans (S >= 4096) it reads the payload once
-    instead of L times and wins ~1.7x whole-decoder (r4, N=32768 L=8);
-    SCL_GATHER overrides globally for A/B tests."""
+    Default is a chain of L selects, which fuses into the surrounding
+    elementwise ops. `mode="einsum"` forces a one-hot contraction, which
+    reads the payload once instead of L times (the large-N scan decoders
+    use it at wide spans); SCL_GATHER overrides globally for A/B tests.
+    The contraction runs at precision=HIGHEST so LLRs pass through
+    exactly."""
     if (mode or _GATHER_MODE) == "select":
         n_list = x.shape[-2]
         out = x[..., 0:1, :]
@@ -143,7 +141,7 @@ def _take_paths(x, perm, mode=None):
     onehot = jax.nn.one_hot(perm, x.shape[-2], dtype=jnp.float32)
     out = jnp.einsum(
         "...lk,...ks->...ls", onehot, x.astype(jnp.float32),
-        preferred_element_type=jnp.float32,
+        preferred_element_type=jnp.float32, precision=_HIGHEST,
     )
     return out.astype(x.dtype)
 
@@ -151,8 +149,8 @@ def _take_paths(x, perm, mode=None):
 def _take_last(x, idx):
     """Gather along the LAST axis: x [..., C], idx [..., L] -> [..., L].
 
-    Same rationale as _take_paths: a select chain for narrow C (fuses on
-    the VPU), one-hot contraction when C is wide (ENUM candidate lists)."""
+    A select chain for narrow C, a one-hot contraction (exact, at
+    precision=HIGHEST) when C is wide (ENUM candidate lists)."""
     n_c = x.shape[-1]
     if _GATHER_MODE == "select" and n_c <= 16:
         out = jnp.broadcast_to(x[..., 0:1], idx.shape).astype(x.dtype)
@@ -162,7 +160,7 @@ def _take_last(x, idx):
     onehot = jax.nn.one_hot(idx, n_c, dtype=jnp.float32)
     out = jnp.einsum(
         "...lc,...c->...l", onehot, x.astype(jnp.float32),
-        preferred_element_type=jnp.float32,
+        preferred_element_type=jnp.float32, precision=_HIGHEST,
     )
     return out.astype(x.dtype)
 
@@ -215,12 +213,6 @@ class SCLDecoder:
     north-star configuration.
     """
 
-    # class defaults so subclasses that bypass __init__ (LargeSCLDecoder)
-    # keep the XLA backend
-    backend = "xla"
-    _pallas_fn = None
-    _pallas_span = None
-
     def __init__(
         self,
         block_length: int,
@@ -232,9 +224,6 @@ class SCLDecoder:
         enum_span: int = 16,
         max_enum_k: Optional[int] = None,
         layout: str = "batch_first",
-        backend: Optional[str] = None,
-        pallas_tile: int = 128,
-        pallas_span: Optional[int] = None,
     ):
         n = block_length.bit_length() - 1
         if (1 << n) != block_length:
@@ -256,11 +245,8 @@ class SCLDecoder:
             )
         self._int8 = self.dtype == jnp.int8
         # int8 (SclFipChar) mode stores integer-valued LLRs in float32 with
-        # saturating [-127,127] arithmetic (fi_adds_epi8 value parity). On
-        # TPU the VPU is f32-native: emulated int8/int16 vector ops measured
-        # 1.75x slower and bf16 storage 1.5x slower (extra cast passes),
-        # so value-parity-in-f32 is the fast layout for the "char" path.
-        # dtype=bfloat16 keeps the LLR/bit state in bf16 (half the HBM
+        # saturating [-127,127] arithmetic (fi_adds_epi8 value parity).
+        # dtype=bfloat16 keeps the LLR/bit state in bf16 (half the memory
         # traffic of the memory-bound decode) with metric accumulation in
         # float32; numerics differ from f32 only by bf16 rounding of the
         # channel LLRs and g-sums.
@@ -269,14 +255,9 @@ class SCLDecoder:
         # ML-enumeration node (one batched matmul; see _leaf_enum). With
         # L=1 they would be *less* greedy than SC (pruning after the leaf
         # instead of after every bit), so L=1 keeps the reference tree to
-        # preserve bit-exact SC equivalence. max_enum_k=4 is the measured
-        # optimum at N=1024 L=8 on the XLA path (v5e sweep: k=3 0.92 ms,
-        # k=4 0.90, k=5 0.97, k=6 1.04, no ENUM 1.22 per 1024 blocks) and
-        # within run noise of the Pallas optimum (interleaved repeat A/B:
-        # k=3 vs k=4 medians equal at ~0.50 ms; single-shot sweeps that
-        # favored k=3 by ~5% did not replicate). One default keeps both
-        # backends on the same tree — same candidate sets, same tie order.
-        # BLER is unaffected (ENUM is exact ML over the leaf at any k).
+        # preserve bit-exact SC equivalence. max_enum_k=4 is the default
+        # leaf size; BLER is unaffected (ENUM is exact ML over the leaf at
+        # any k).
         if max_enum_k is None:
             max_enum_k = 4
         if self.list_size == 1:
@@ -284,32 +265,12 @@ class SCLDecoder:
         self.enum_span = enum_span
         self.max_enum_k = max_enum_k
         # batch_last keeps per-path state as [L, span, batch] so the batch
-        # axis fills the 128-wide VPU lanes at EVERY tree node; batch_first
-        # ([.., L, span]) puts the (small, deep-node) span on the lanes and
-        # wastes most of them. Same math, same results.
+        # axis is the minor (contiguous) one at EVERY tree node; batch_first
+        # ([.., L, span]) puts the (small, deep-node) span there. Same math,
+        # same results.
         if layout not in ("batch_last", "batch_first"):
             raise ValueError(f"unknown layout {layout}")
         self.layout = layout
-        # backend="pallas": fused VMEM-resident subtree kernels
-        # (ops/scl_kernel_bl.py) — ~2x the XLA path at N=1024 L=8 on
-        # v5e. float32/bfloat16 + batch_first
-        # only (bf16 packs the kernel state two-per-vreg-word);
-        # falls back to XLA otherwise. Same candidate sets and tie order;
-        # BLER statistically identical (A/B over 8192 blocks @1.5 dB).
-        # backend=None auto-selects the qualified fast path on TPU
-        # (utils/backend.py; reference factory parity, decoder.cpp:54-87).
-        requested_backend = backend
-        backend = resolve_backend(
-            backend, "scl", block_length, self.list_size
-        )
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend}")
-        self.backend = backend
-        self._pallas_fn = None
-        # experiment knobs (measured defaults): batch tile on the VPU lanes
-        # and the max span fused into one kernel (None = min(256, N))
-        self._PALLAS_TILE = int(pallas_tile)
-        self._pallas_span = pallas_span
         self.tree: CodeNode = build_tree(
             block_length, self.frozen,
             enum_span=enum_span, max_enum_k=max_enum_k,
@@ -317,8 +278,8 @@ class SCLDecoder:
         self._enum_tables = {}
         # L=1 SCL degenerates to plain SC: the single path always keeps its
         # best candidate, which is exactly the Fast-SSC decision at every
-        # leaf. Delegate to the Fast-SSC schedule (no prune/fork machinery;
-        # ~300x faster at N=1024) and recover the path metric from the
+        # leaf. Delegate to the Fast-SSC schedule (no prune/fork machinery)
+        # and recover the path metric from the
         # telescoped codeword-domain form of the aggregate min-sum metric,
         # PM(x) = sum_i min((1-2x_i) llr_i, 0)  (same identity _leaf_enum
         # uses at leaf level).
@@ -328,7 +289,7 @@ class SCLDecoder:
 
             self._sc = FastSSCDecoder(
                 block_length, self.frozen, systematic=True,
-                dtype=self.dtype, backend=requested_backend,
+                dtype=self.dtype,
             )
 
     # ---- dtype-generic arithmetic ----------------------------------------
@@ -491,7 +452,9 @@ class SCLDecoder:
         m = jnp.stack(ms, axis=-1)  # [..., L, 4]
         idx = jnp.stack(idx_list, axis=-1)
         parity_odd = jnp.prod(hard.astype(jnp.int32), axis=-1) < 0
-        t_cost = m[..., 1:] @ jnp.asarray(_SPC_T.T)  # [..., L, 8]
+        t_cost = jnp.matmul(
+            m[..., 1:], jnp.asarray(_SPC_T.T), precision=_HIGHEST
+        )  # [..., L, 8]
         m0 = m[..., 0:1]
         delta_even = -jnp.asarray(_SPC_M0_EVEN) * m0 - t_cost
         delta_odd = -m0 - t_cost
@@ -504,10 +467,8 @@ class SCLDecoder:
             even = jnp.asarray(_SPC_FLIPS_EVEN[cand])  # [w', 4]
             odd = jnp.asarray(_SPC_FLIPS_ODD[cand])
         else:
-            # select-chain table lookup: indexing the [2, 8, 4] table with
-            # dynamic [.., L] ids compiles to an XLA gather that costs ~51us
-            # per call on TPU regardless of size (profiled: 14 SPC leaves =
-            # 0.7 ms of a 2.5 ms decode); eight fused selects are ~free
+            # select-chain table lookup: eight selects that fuse into the
+            # surrounding elementwise ops instead of a dynamic table gather
             even = jnp.zeros(cand.shape + (4,), bool)
             odd = jnp.zeros(cand.shape + (4,), bool)
             for c in range(8):
@@ -552,13 +513,13 @@ class SCLDecoder:
         The min-sum SCL path metric telescopes to the codeword-domain
         disagreement sum  PM(x) = sum_i min((1-2x_i) llr_i, 0)
         = ((1-2x)·llr - sum|llr|)/2,  so scoring every codeword is one
-        [.., L, span] x [span, n_cand] contraction (MXU) and the result is
+        [.., L, span] x [span, n_cand] contraction and the result is
         *exact* bitwise SCL over the leaf — no candidate restriction."""
         table = self._enum_table(node)  # [n_cand, span] bipolar
         work = llr.astype(jnp.float32) if self._int8 else llr
         scores = jnp.einsum(
             "...ls,cs->...lc", work, jnp.asarray(table),
-            preferred_element_type=jnp.float32,
+            preferred_element_type=jnp.float32, precision=_HIGHEST,
         )
         sum_abs = jnp.sum(
             jnp.abs(work).astype(jnp.float32), axis=-1, keepdims=True
@@ -569,12 +530,12 @@ class SCLDecoder:
             bits = jnp.asarray(table[cand], dtype=self._sdtype)  # [w', span]
             bits = jnp.broadcast_to(bits, new_metrics.shape + table.shape[1:])
         else:
-            # one-hot MXU contraction, not table[cand]: dynamic-index table
-            # gathers cost ~51us each on TPU regardless of size
+            # one-hot contraction of the candidate table (exact: one-hot
+            # rows times +-1 entries)
             onehot = jax.nn.one_hot(cand, table.shape[0], dtype=jnp.float32)
             bits = jnp.einsum(
                 "...lc,cs->...ls", onehot, jnp.asarray(table),
-                preferred_element_type=jnp.float32,
+                preferred_element_type=jnp.float32, precision=_HIGHEST,
             ).astype(self._sdtype)
         return bits, src, new_metrics
 
@@ -616,17 +577,11 @@ class SCLDecoder:
     def _bl_take(self, x, perm):
         """Gather [L, S, B] state along the path axis by perm [B, L].
 
-        Select chain, not take_along_axis: dynamic gathers on TPU cost
-        ~50-70us of scalar index plumbing per call regardless of payload
-        (see _take_paths); L lane-wide selects fuse into the surrounding
-        elementwise ops.
-
-        At wide f32 payloads (w >= 16, w*S >= 8192 — the glue levels
-        above the kernel span) the gather instead runs as a batched
-        one-hot dot_general on the MXU ([w_out, w_in] x [w_in, S] per
-        batch lane, precision=HIGHEST so f32 payloads pass through
-        exactly): measured v5e, span 1024 B 1024, L=16 0.202 -> 0.100 ms,
-        L=32 0.912 -> 0.193 ms, bit-exact vs the chain."""
+        A chain of L selects that fuse into the surrounding elementwise
+        ops (see _take_paths). At wide f32 payloads (w >= 16,
+        w*S >= 8192) the gather instead runs as a batched one-hot
+        dot_general ([w_out, w_in] x [w_in, S] per batch column), at
+        precision=HIGHEST so f32 payloads pass through exactly."""
         n_list = x.shape[0]
         w_out = perm.shape[-1]
         if (n_list >= 16 and x.dtype == jnp.float32
@@ -636,7 +591,7 @@ class SCLDecoder:
             out = jax.lax.dot_general(
                 oh, x,
                 (((2,), (0,)), ((0,), (2,))),
-                precision=jax.lax.Precision.HIGHEST,
+                precision=_HIGHEST,
             )  # [B, w_out, S]
             return out.transpose(1, 2, 0)
         perm_t = perm.T  # [L, B]
@@ -737,7 +692,9 @@ class SCLDecoder:
         m, idx = self._bl_weakest(mag, 4)  # m [B, L, 4]
         neg = jnp.sum((hard < 0).astype(jnp.int32), axis=1)  # [L, B]
         parity_odd = (neg % 2 == 1).T  # [B, L]
-        t_cost = m[..., 1:] @ jnp.asarray(_SPC_T.T)  # [B, L, 8]
+        t_cost = jnp.matmul(
+            m[..., 1:], jnp.asarray(_SPC_T.T), precision=_HIGHEST
+        )  # [B, L, 8]
         m0 = m[..., 0:1]
         delta_even = -jnp.asarray(_SPC_M0_EVEN) * m0 - t_cost
         delta_odd = -m0 - t_cost
@@ -745,8 +702,7 @@ class SCLDecoder:
         new_metrics, src, cand = self._prune(metrics, deltas)
         hard_g = self._bl_take(hard, src)
         parity_g = _take_last(parity_odd.astype(jnp.int32), src)  # [B, L]
-        # select-chain lookup (see _leaf_spc: dynamic table gathers are
-        # pathologically slow on TPU)
+        # select-chain table lookup (see _leaf_spc)
         even = jnp.zeros(cand.shape + (4,), bool)
         odd = jnp.zeros(cand.shape + (4,), bool)
         for c in range(8):
@@ -770,7 +726,7 @@ class SCLDecoder:
         work = llr.astype(jnp.float32) if self._int8 else llr
         scores = jnp.einsum(
             "lsb,cs->blc", work, jnp.asarray(table),
-            preferred_element_type=jnp.float32,
+            preferred_element_type=jnp.float32, precision=_HIGHEST,
         )
         sum_abs = jnp.sum(
             jnp.abs(work).astype(jnp.float32), axis=1
@@ -842,215 +798,6 @@ class SCLDecoder:
             codewords = jnp.signbit(bits).astype(jnp.uint8)
         return codewords.transpose(2, 0, 1), metrics
 
-    # ---- Pallas backend ----------------------------------------------------
-
-    _PALLAS_TILE = 128  # batch tile = VPU lane width
-
-    def _decode_paths_pallas(self, llr, lead):
-        """Fused VMEM-resident subtree kernels (ops/scl_kernel_bl.py)."""
-        self._build_pallas()
-        flat = llr.reshape((-1, self.block_length))
-        n_batch = flat.shape[0]
-        tile = self._PALLAS_TILE
-        pad = (-n_batch) % tile
-        if pad:
-            flat = jnp.concatenate(
-                [flat, jnp.zeros((pad, self.block_length), flat.dtype)]
-            )
-        codewords, metrics = self._pallas_fn(flat)
-        if pad:
-            codewords = codewords[:n_batch]
-            metrics = metrics[:n_batch]
-        codewords = codewords.reshape(
-            lead + (self.list_size, self.block_length)
-        )
-        metrics = metrics.reshape(lead + (self.list_size,))
-        return codewords, metrics, metrics > _ACTIVE_THRESHOLD
-
-    def _build_pallas(self):
-        if self._pallas_fn is None:
-            from ..ops.scl_kernel_bl import build_bl_hybrid_decode_paths
-
-            span = self._pallas_span
-            if span is None:
-                # VMEM-safe default: measured optima (v5e, N=1024, int8
-                # bit state) are L<=8 -> 512, L=16 -> 256, L=32 -> 128
-                # (each +7-12% over the half-size span; the next size up
-                # exceeds VMEM at L>=16 and is slower at L=8). Larger
-                # lists shrink the kernel span so the VMEM-resident
-                # [L, span, B] state stays ~constant.
-                span = max(128, min(512, 4096 // max(self.list_size, 8)))
-                span = min(span, self.block_length)
-            self._pallas_fn = build_bl_hybrid_decode_paths(
-                self,
-                batch_tile=self._PALLAS_TILE,
-                kernel_span=span,
-                # f32 or bf16 state (packed vreg tiles); int8/char runs
-                # saturating ops on bf16 — every value is an integer in
-                # [-254, 254], exact in bf16, so fip_char parity holds
-                state_dtype=(jnp.bfloat16 if self._int8 else self.dtype),
-            )
-        return self._pallas_fn
-
-    def _syndrome_consts(self):
-        """Host-side constants for the syndrome-matmul CRC check.
-
-        The detector's GF(2) check `A @ info01 + g0 == 0 (mod 2)` is
-        lifted to the FULL systematic codeword: A_full[n, t] places A's
-        column for info bit j at codeword position info_pos[j] (zero rows
-        at frozen positions). On the kernel's {0,1} int8 bits the syndrome
-        is (A_full^T @ x01 + g0) mod 2 — one MXU contraction over the
-        kernel-native [L, N, B] layout, replacing the info-position
-        gather + [L,B,K] transpose + u8 cast of every path (~0.1 ms at
-        N=1024 L=8 B=1024; TPU gathers cost ~50-70 us each regardless of
-        payload)."""
-        if getattr(self, "_syn_cache", None) is None:
-            det = self.detector
-            d = self.info_length - det.tail_bits
-            G, g0 = det.affine_map(d)
-            A = np.concatenate(
-                [G, np.eye(det.tail_bits, dtype=np.uint8)], axis=1
-            )  # [tail, K]
-            a_full = np.zeros(
-                (self.block_length, det.tail_bits), dtype=np.int8
-            )
-            a_full[np.asarray(self.info_pos), :] = A.T.astype(np.int8)
-            # cache NUMPY constants: a jnp array materialized during a jit
-            # trace is a tracer, and caching it leaks it into later traces
-            # (UnexpectedTracerError on any re-jit of decode)
-            self._syn_cache = (a_full, np.asarray(g0, np.int32))
-        a_full, g0 = self._syn_cache
-        return jnp.asarray(a_full), jnp.asarray(g0)
-
-    def _syn_cache_np(self):
-        """Host NumPy (A_full [N, tail], g0 [tail]) — the packed-tail path
-        bakes the per-column masks as trace constants."""
-        self._syndrome_consts()
-        return self._syn_cache
-
-    def _decode_pallas_fast(self, llr):
-        """decode() in the kernel-native [L, N, B] layout: CRC-aided
-        selection contracts the per-path {0,1} int8 bits where they land
-        (syndrome matmul, no gathers), and only the ONE selected codeword
-        is relayouted to [B, N] — skipping the [B, L, N] transpose +
-        per-path gathers of the generic path (~0.2 ms at N=1024 L=8
-        B=1024)."""
-        fn = self._build_pallas()
-        llr = jnp.asarray(llr, dtype=self.dtype)
-        lead = llr.shape[:-1]
-        flat = llr.reshape((-1, self.block_length))
-        n_batch = flat.shape[0]
-        pad = (-n_batch) % self._PALLAS_TILE
-        if pad:
-            flat = jnp.concatenate(
-                [flat, jnp.zeros((pad, self.block_length), flat.dtype)]
-            )
-        n_list = self.list_size
-        # Bitplane tail (L <= 32): the kernels/glue already carry the L
-        # per-path bits as ONE i32 word per (n, b) (raw_packed); the
-        # GF(2) syndrome is then tail_bits masked XOR-reductions over N
-        # (each i32 op carries all L paths at once) and codeword
-        # selection is a single variable shift — replacing the int
-        # dot_general + (L-1)-pass select chain of the plane layout.
-        packed = bits = None
-        if getattr(fn, "raw_packed", None) is not None:
-            packed, metrics = fn.raw_packed(flat)  # [N, Bp] i32, [Bp, L]
-        else:
-            bits, metrics = fn.raw_bits(flat)  # [L, N, Bp] int8, [Bp, L]
-            # at L < 8 the dense dot + short select chain beats the
-            # pack + per-tail-bit XOR-reductions (measured: n1024_l2
-            # pallas 4837 -> 4222 with the packed tail forced on)
-            if bits.dtype == jnp.int8 and 8 <= n_list <= 32:
-                packed = bits[0].astype(jnp.int32)
-                for k in range(1, n_list):
-                    packed = packed | (bits[k].astype(jnp.int32) << k)
-        active = metrics > _ACTIVE_THRESHOLD
-        use_syndrome = self.detector.tail_bits and self.detector._is_linear()
-        if use_syndrome and packed is not None:
-            a_full, g0 = self._syn_cache_np()
-            bad = jnp.zeros(packed.shape[-1], jnp.int32)  # [Bp]
-            for t in range(self.detector.tail_bits):
-                mask_t = jnp.asarray(a_full[:, t] != 0)
-                masked = jnp.where(mask_t[:, None], packed, 0)
-                s_t = jax.lax.reduce(
-                    masked, np.int32(0), jax.lax.bitwise_xor, (0,)
-                )  # [Bp]; bit l = parity of path l's checked positions
-                if int(g0[t]):  # expected parity 1: mismatch = ~parity
-                    s_t = ~s_t
-                bad = bad | s_t
-            ok_all = jnp.stack(
-                [(bad >> l) & 1 == 0 for l in range(n_list)], axis=-1
-            ) & active  # [Bp, L]
-            score = jnp.where(ok_all, metrics, _NEG)
-            best_ok = jnp.argmax(score, axis=-1)
-            best_ml = jnp.argmax(metrics, axis=-1)
-            any_ok = jnp.any(ok_all, axis=-1)
-            sel = jnp.where(any_ok, best_ok, best_ml)
-            detector_ok = any_ok
-        elif use_syndrome:
-            a_full, g0 = self._syndrome_consts()
-            dot = jax.lax.dot_general(
-                bits,
-                a_full,
-                (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )  # [L, Bp, tail] int32 = sum_n x01[l,n,b] * A_full[n,t]
-            syn = (dot + g0[None, None, :]) % 2  # == 0 <=> CRC ok
-            ok_all = jnp.all(syn == 0, axis=-1).T & active
-            score = jnp.where(ok_all, metrics, _NEG)
-            best_ok = jnp.argmax(score, axis=-1)
-            best_ml = jnp.argmax(metrics, axis=-1)
-            any_ok = jnp.any(ok_all, axis=-1)
-            sel = jnp.where(any_ok, best_ok, best_ml)
-            detector_ok = any_ok
-        elif self.detector.tail_bits:  # non-affine detector (CMAC)
-            info_pos = jnp.asarray(self.info_pos)
-            if bits is None:  # packed word: unpack for the host callback
-                bits = jnp.stack(
-                    [((packed >> l) & 1).astype(jnp.int8)
-                     for l in range(n_list)], axis=0,
-                )
-            cw_u8 = bits.astype(jnp.uint8)
-            info_all = cw_u8[:, info_pos, :].transpose(0, 2, 1)  # [L, B, K]
-            ok_all = self.detector.check(info_all).T & active  # [Bp, L]
-            score = jnp.where(ok_all, metrics, _NEG)
-            best_ok = jnp.argmax(score, axis=-1)
-            best_ml = jnp.argmax(metrics, axis=-1)
-            any_ok = jnp.any(ok_all, axis=-1)
-            sel = jnp.where(any_ok, best_ok, best_ml)
-            detector_ok = any_ok
-        else:
-            sel = jnp.argmax(metrics, axis=-1)
-            detector_ok = jnp.ones(sel.shape, dtype=bool)
-        if packed is not None:  # one variable shift selects the codeword
-            bits_sel = ((packed >> sel[None, :]) & 1).astype(jnp.int8)
-        else:  # select chain over the list axis
-            bits_sel = bits[0]  # [N, Bp] int8
-            for k in range(1, n_list):
-                bits_sel = jnp.where((sel == k)[None, :], bits[k], bits_sel)
-        codeword = bits_sel.T.astype(jnp.uint8)  # [Bp, N]
-        # info extraction as a one-hot MXU contraction (axis gather of
-        # K static positions would lower to scalar index plumbing)
-        if getattr(self, "_info_sel_mat", None) is None:
-            m = np.zeros((self.block_length, self.info_length), np.int8)
-            m[np.asarray(self.info_pos), np.arange(self.info_length)] = 1
-            self._info_sel_mat = m  # numpy: jnp under a trace would leak
-        info = jax.lax.dot_general(
-            bits_sel,
-            jnp.asarray(self._info_sel_mat),
-            (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.uint8)  # [Bp, K]
-        if pad:
-            codeword = codeword[:n_batch]
-            info = info[:n_batch]
-            detector_ok = detector_ok[:n_batch]
-        return (
-            info.reshape(lead + (self.info_length,)),
-            codeword.reshape(lead + (self.block_length,)),
-            detector_ok.reshape(lead),
-        )
-
     # ---- public API --------------------------------------------------------
 
     def decode_paths(self, llr):
@@ -1072,8 +819,6 @@ class SCLDecoder:
         if self._int8:
             llr = llr.astype(self._sdtype)
         lead = llr.shape[:-1]
-        if self.backend == "pallas" and self.layout == "batch_first":
-            return self._decode_paths_pallas(llr, lead)
         if self.layout == "batch_last":
             flat = llr.reshape((-1, self.block_length))
             codewords, metrics = self._decode_paths_batch_last(flat)
@@ -1116,14 +861,6 @@ class SCLDecoder:
 
         Best-path selection mirrors extractBestPath (scl_avx_float.cpp:711):
         highest-metric path whose CRC checks; if none, the ML path."""
-        if (
-            self.backend == "pallas"
-            and self.systematic
-            and self.tree is not None  # LargeSCLDecoder has its own kernels
-            and self._sc is None
-            and self.layout == "batch_first"
-        ):
-            return self._decode_pallas_fast(llr)
         codewords, metrics, active = self.decode_paths(llr)
         if self.systematic:
             info_all = codewords[..., jnp.asarray(self.info_pos)]

@@ -1,7 +1,7 @@
 """Code-tree specialization: classify subcodes once, at trace time.
 
 The reference builds a specialized decoder tree with C++ `new`-dispatch at
-construction time (fastssc_avx_float.cpp:797-897 createDecoder). The TPU
+construction time (fastssc_avx_float.cpp:797-897 createDecoder). The JAX
 analogue: classify the (static) frozen set into a tree of node kinds on the
 host; decoders then walk the tree in Python *while tracing*, emitting a flat
 schedule of batched XLA ops. The tree is static per code, so the traced

@@ -1,9 +1,9 @@
 """Polar butterfly transform (x = u F^{(x)n}, natural order, no bit reversal).
 
-TPU-first redesign of the reference's AVX2 butterfly encoder
+Batched redesign of the reference's AVX2 butterfly encoder
 (/root/reference/src/polarcode/encoding/butterfly_fip.cpp:15-73): instead of
 shifting bits inside 256-bit registers for one codeword, we operate on a
-[batch, N] array and let the batch axis fill the VPU lanes; each stage is a
+[batch, N] array; each stage is a
 reshape + XOR (or multiply, in bipolar form) that XLA fuses into a handful of
 vectorized ops. The transform is an involution and its stages commute, so
 stage order is free.
@@ -56,29 +56,28 @@ def _transform_matrix(n_len: int) -> np.ndarray:
 
 
 def _mod2(y):
-    """f32 integer-valued -> {0,1} f32 (y - 2*floor(y/2); VPU-native)."""
+    """f32 integer-valued -> {0,1} f32 (y - 2*floor(y/2))."""
     return y - 2.0 * jnp.floor(y * 0.5)
 
 
 def default_inner(n_len: int) -> int:
-    """MXU factor split: inner length near sqrt(N), >= 128 lanes."""
+    """Kronecker factor split: inner length near sqrt(N), at least 128."""
     root = 1 << ((n_len.bit_length() - 1 + 1) // 2)
     return max(128, min(root, n_len))
 
 
 def polar_transform_mxu(x01, n_inner: int | None = None):
-    """In-order polar transform on {0,1} values via two MXU contractions.
+    """In-order polar transform on {0,1} values via two matrix products.
 
     The transform matrix factors exactly: with N = No*Ni and codeword
     index i = o*Ni + j, M_N == kron(M_No, M_Ni) (butterfly stages s <
     log2(Ni) touch only j, the rest only o). So the N-stage butterfly —
-    log2(N) HBM round-trips as elementwise passes — becomes TWO dense
+    log2(N) memory round-trips as elementwise passes — becomes TWO dense
     GF(2) matmuls on [.., No, Ni]: contract j with M_Ni, then o with
-    M_No, folding mod 2 between. Inputs are cast to bf16 ({0,1} exact);
-    the MXU accumulates f32, sums <= max(Ni, No) << 2^24, so the result
-    is bit-exact vs butterfly_transform. This is the production path for
-    large N where the all-stage VMEM kernel (ops/butterfly_kernel.py)
-    exceeds VMEM/compile limits (capability target
+    M_No, folding mod 2 between. Operands are {0,1} float32 at default
+    precision: exact even where a GPU rounds them to TF32, with f32
+    accumulation of sums <= max(Ni, No) << 2^24, so the result is
+    bit-exact vs butterfly_transform on every backend (capability target
     butterfly_fip_packed.cpp:45-69 at the benchmark's N<=131072 range).
 
     x01: [..., N] {0,1} (any real dtype). Returns [..., N] f32 {0,1}.
@@ -90,9 +89,7 @@ def polar_transform_mxu(x01, n_inner: int | None = None):
         raise ValueError(f"block length {n_len} is not a power of 2")
     if n_inner is None:
         n_inner = default_inner(n_len)
-    # bf16 operands ({0,1} exact, f32 MXU accumulation) on TPU; CPU XLA
-    # has no BF16xBF16=F32 dot thunk, so tests fall back to f32
-    mdt = jnp.bfloat16 if jax.default_backend() != "cpu" else jnp.float32
+    mdt = jnp.float32
     if n_inner >= n_len:
         # degenerate small N: one matmul
         m = jnp.asarray(_transform_matrix(n_len), mdt)
@@ -119,7 +116,7 @@ def polar_transform_mxu(x01, n_inner: int | None = None):
 
 
 def butterfly_transform_bipolar(signs):
-    """Same transform on {+1,-1} floats: XOR becomes multiply (VPU-native)."""
+    """Same transform on {+1,-1} floats: XOR becomes multiply."""
     x = jnp.asarray(signs)
     n_len = x.shape[-1]
     n = n_len.bit_length() - 1

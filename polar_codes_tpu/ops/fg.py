@@ -1,9 +1,9 @@
 """SC decoding kernels: min-sum f, g, and combine.
 
-TPU redesign of the reference's AVX float kernels
+Batched redesign of the reference's AVX float kernels
 (/root/reference/include/polarcode/decoding/avx_float.h:55-302). All
 functions are batched elementwise ops over the *last* axis (subcode span);
-leading axes are batch (and list) dimensions that map onto the 8x128 VPU.
+leading axes are batch (and list) dimensions.
 
 Conventions:
 - LLR > 0 <=> bit 0 (sign bit stores the bit, as in FloatContainer).
@@ -25,27 +25,6 @@ def f_minsum(a, b):
 def g_update(a, b, left_bipolar):
     """g(a,b,u) = b + (1-2u)*a, with left bits in bipolar form (avx_float.h:71-98)."""
     return b + left_bipolar * a
-
-
-def f_minsum_bits(a, b):
-    """min-sum f on raw float32 bits: sign-XOR + magnitude-min.
-
-    The reference's own AVX formulation (avx_float.h:55
-    `_mm256_polarf_ps`: and/xor/min on sign-masked words) — ~3 VPU ops
-    cheaper than the jnp.sign product inside Pallas kernels. Identical
-    to f_minsum except at exact-zero inputs, where it propagates the
-    XOR of the sign bits (like the reference) instead of sign(0)=0;
-    only safe where exact zeros cannot occur (channel LLR trees — NOT
-    the SCAN beta memory, which initializes to zeros)."""
-    import jax
-
-    ai = jax.lax.bitcast_convert_type(a, jnp.int32)
-    bi = jax.lax.bitcast_convert_type(b, jnp.int32)
-    sign = (ai ^ bi) & jnp.int32(-2147483648)
-    mag = jnp.minimum(
-        ai & jnp.int32(0x7FFFFFFF), bi & jnp.int32(0x7FFFFFFF)
-    )
-    return jax.lax.bitcast_convert_type(sign | mag, jnp.float32)
 
 
 def combine_bipolar(left, right):
@@ -73,10 +52,8 @@ def f_minsum_sat(a, b):
 
     Bit-identical values to f_minsum_i8 (fip_char.h F semantics): every LLR
     is an integer in [-127, 127], which bfloat16 represents exactly; the
-    arithmetic runs in float32 (TPU VPU native width) instead of emulated
-    int8/int16 vector ops — that makes the SclFipChar-parity path *faster*
-    than f32 (half the HBM traffic at fusion boundaries) instead of 1.75x
-    slower (measured: int8/int16 elementwise on v5e)."""
+    arithmetic runs in float32 instead of int8/int16 vector ops, with half
+    the f32 memory traffic at fusion boundaries."""
     a32, b32 = a.astype(jnp.float32), b.astype(jnp.float32)
     sign = jnp.sign(a32) * jnp.sign(b32)
     return (sign * jnp.minimum(jnp.abs(a32), jnp.abs(b32))).astype(a.dtype)

@@ -1,11 +1,11 @@
 """Device-mesh parallelism for the Monte-Carlo simulator.
 
-TPU-native replacement for the reference's only multi-worker parallelism —
+Device-mesh replacement for the reference's only multi-worker parallelism —
 the std::thread pool with an atomic job counter
 (/root/reference/src/simulation/simulator.cpp:87-116): here the batch axis
 is sharded over a jax.sharding.Mesh, per-device PRNG streams come from
 splitting a key array (replacing the mutex-guarded shared LCG, random.h:30),
-and error counters are reduced with psum over ICI (replacing per-job field
+and error counters are reduced with psum across devices (replacing per-job field
 accumulation).
 """
 

@@ -7,11 +7,12 @@ the axis. Codec kernels never communicate — all collective use is confined
 to this driver layer (SURVEY.md section 5, "distributed communication").
 
 Multi-host: `init_distributed` wires `jax.distributed.initialize`, after
-which `default_mesh` spans ALL processes' devices (psum rides ICI within a
-slice and DCN across hosts) and `distribute_keys` / `host_aggregate` handle
-the host-local <-> global array boundary. The 2-process CPU configuration is
-exercised by tests/test_multihost.py — the replacement for testing pods
-without pod hardware (SURVEY.md section 4 "fake backends" analogue).
+which `default_mesh` spans ALL processes' devices (psum rides the intra-host
+interconnect within a host and the network across hosts) and
+`distribute_keys` / `host_aggregate` handle the host-local <-> global array
+boundary. The 2-process CPU configuration is exercised by
+tests/test_multihost.py — the replacement for testing clusters without
+cluster hardware (SURVEY.md section 4 "fake backends" analogue).
 """
 
 from __future__ import annotations
@@ -20,12 +21,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import jax
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:  # jax >= 0.7 top-level API; experimental path kept as fallback
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 def init_distributed(
@@ -35,9 +32,9 @@ def init_distributed(
 ) -> None:
     """Multi-host wiring: call once per process before building a mesh.
 
-    On TPU pods all three arguments are discovered from the environment
-    (jax.distributed.initialize()); pass them explicitly for CPU/GPU
-    clusters or tests. Replaces the reference's single-process thread pool
+    Where no cluster environment describes the job (a single GPU host, or
+    tests), pass all three explicitly, e.g. coordinator_address=
+    "localhost:<port>". Replaces the reference's single-process thread pool
     (simulator.cpp:87-116) at the host level: each process owns its local
     chips, one global mesh spans them all.
     """
@@ -57,7 +54,7 @@ def default_mesh(
     """1-D mesh over the first n (default: all) global devices.
 
     After init_distributed, jax.devices() is the global (all-process)
-    device list, so the same call builds the pod-wide mesh."""
+    device list, so the same call builds the cluster-wide mesh."""
     devices = jax.devices()
     n = len(devices) if n_devices is None else int(n_devices)
     if n > len(devices):
@@ -86,7 +83,7 @@ def distribute_keys(key, mesh: Mesh, axis_name: str = "batch"):
 def host_aggregate(tree):
     """Bring (replicated) global results to every host as NumPy values.
 
-    DCN host aggregation (SURVEY.md section 5 plan). psum results from a
+    Cross-host aggregation (SURVEY.md section 5 plan). psum results from a
     sharded_counter_step are replicated over the global mesh, so each
     process reads its local replica; host-local values go through
     multihost_utils.process_allgather. Identity on a single process."""
@@ -114,8 +111,9 @@ def sharded_counter_step(
     of scalar counters. The lifted function takes a key array with one key
     per mesh device (jax.random.split(key, n_devices)) plus the same *args
     (replicated), runs the step on every device's shard, and returns
-    psum-aggregated counters. This is the TPU analogue of the reference's
-    per-thread SimulationWorker + shared DataPoint accumulation.
+    psum-aggregated counters. This is the device-mesh analogue of the
+    reference's per-thread SimulationWorker + shared DataPoint
+    accumulation.
     """
 
     def inner(keys, *args):

@@ -1,7 +1,7 @@
 """Checkpoint/resume for long Monte-Carlo sweeps.
 
 The reference has none (jobs are short, results written once at the end —
-SURVEY.md section 5); for TPU-scale sweeps that run for hours across
+SURVEY.md section 5); for accelerator-scale sweeps that run for hours across
 preemptible capacity this adds the missing durability: after every chunk
 the accumulated counters are written to a .npz next to the output CSV, and
 a restarted sweep resumes at the first unfinished (job, chunk) pair with

@@ -79,9 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "rayleigh.cpp, exposed here as a simtype-independent "
                         "option)")
     p.add_argument("--platform", default="auto", choices=["auto", "cpu"])
-    p.add_argument("--backend", default="xla", choices=["xla", "pallas"],
-                   help="decode/encode compute backend: pallas = fused "
-                        "VMEM kernels (TPU; extension beyond pcsim)")
     p.add_argument("--checkpoint", default="",
                    help="npz path for chunk-level checkpoint/resume")
     return p
@@ -114,9 +111,8 @@ def make_coders(n_len, k_len, args, detector):
 
     frozen = frozen_bits(n_len, k_len, args.design_snr, args.construction)
     systematic = not args.non_systematic
-    backend = getattr(args, "backend", "xla")
     enc = PolarEncoder(n_len, frozen, systematic=systematic,
-                       detector=detector, backend=backend)
+                       detector=detector)
     list_size = args.pathlimit
     simtype = args.simtype
     if simtype in ("scan", "fastsscan"):
@@ -124,7 +120,7 @@ def make_coders(n_len, k_len, args, detector):
 
         cls = ScanDecoder if simtype == "scan" else FastSScanDecoder
         dec = cls(n_len, frozen, systematic=systematic, detector=detector,
-                  iterations=list_size, backend=backend)
+                  iterations=list_size)
         return enc, dec
     if simtype == "depthfirst":
         from ..models.depthfirst import DepthFirstDecoder
@@ -135,17 +131,16 @@ def make_coders(n_len, k_len, args, detector):
     if list_size <= 1:
         dtype = jnp.int8 if args.precision == 8 else jnp.float32
         dec = FastSSCDecoder(n_len, frozen, systematic=systematic,
-                             detector=detector, dtype=dtype,
-                             backend=backend)
+                             detector=detector, dtype=dtype)
     elif args.precision == 832 and detector.tail_bits:
         dec = AdaptiveDecoder(n_len, frozen, list_size=list_size,
                               systematic=systematic, detector=detector,
-                              fast_dtype=jnp.int8, backend=backend)
+                              fast_dtype=jnp.int8)
     else:
         dtype = jnp.int8 if args.precision == 8 else jnp.float32
         dec = SCLDecoder(n_len, frozen, list_size=list_size,
                          systematic=systematic, detector=detector,
-                         dtype=dtype, backend=backend)
+                         dtype=dtype)
     return enc, dec
 
 
@@ -213,6 +208,9 @@ def main(argv=None):
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from ..utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     n_len, rate = args.blocklength, args.rate
     if args.simtype == "getcode":

@@ -6,7 +6,7 @@ combo plots), plot_polar_code_benchmark.py (benchmark-artifact loading,
 name parsing, throughput-over-info-length prep, cross-file merging) and
 the figure styles of polar_code_plots.py — reworked for this framework's
 artifacts: the pcsim-schema CSVs written by sim/montecarlo.py and the
-JSON-lines TPU grids written by sim/benchmark.py.
+JSON-lines benchmark grids written by sim/benchmark.py.
 
 CLI (the one-command comparison workflows VALIDATION.md references):
 
@@ -173,7 +173,7 @@ def plot_fer_throughput_combo(rows, path: str = None):
     return fig
 
 
-# ---- TPU grid artifacts (plot_polar_code_benchmark.py analogues) --------
+# ---- benchmark grid artifacts (plot_polar_code_benchmark.py analogues) --
 
 _NAME_RE = re.compile(
     r"^(?P<family>[a-z0-9_]+?)(?:_(?P<dtype>float|char|pallas|pallas_char))?"

@@ -1,6 +1,6 @@
 """GF(2) code-structure helpers (reference python/polar_code_tools.py).
 
-NumPy reference implementations used by tests and analysis — the TPU codec
+NumPy reference implementations used by tests and analysis — the JAX codec
 never materializes these matrices (the butterfly is O(N log N)), but the
 generator/systematic matrices are the ground truth the reference's qa
 suites validate against (polar_code_tools.py:111-157)."""

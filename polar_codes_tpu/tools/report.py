@@ -6,7 +6,7 @@ polar_code_plots.py, latex_plot_magic.py) with a single self-contained HTML
 artifact: no external assets, works offline, light/dark aware.
 
     python -m polar_codes_tpu.tools.report results_single.csv \
-        BENCH_TPU_r2_full.jsonl -o report.html
+        benchmarks.jsonl -o report.html
 
 Inputs: any mix of pcsim-schema CSV files (sim.montecarlo output) and
 benchmark JSON-lines files (sim.benchmark output); the file type is sniffed

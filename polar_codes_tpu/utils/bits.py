@@ -8,9 +8,8 @@ conventions used throughout this framework:
              packed (numpy packbits 'big' order, matching the reference's
              PackedContainer byte layout consumed by pypolar).
 - "bipolar": float arrays in {+1,-1}; bit b <-> 1-2b. XOR becomes multiply,
-             which the TPU VPU does natively; decoders carry hard decisions
-             in this form (the float-sign trick of FloatContainer, done
-             TPU-style).
+             an elementwise float op; decoders carry hard decisions in
+             this form (the float-sign trick of FloatContainer, batched).
 - "llr":     float (or int8) log-likelihood ratios, positive <-> bit 0.
 """
 

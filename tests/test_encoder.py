@@ -3,6 +3,7 @@ qa_pypolar_encoder.py (Vangala EncoderA systematic reference)."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
 from polar_codes_tpu.construction import frozen_bits, info_indices
@@ -112,40 +113,43 @@ class TestPolarEncoder:
             enc.encode(jnp.zeros((2, 31), dtype=jnp.uint8))
 
 
-class TestPallasEncodeKernel:
-    """Fused all-stage VMEM butterfly (ops/butterfly_kernel.py):
-    interpret-mode bit-exactness against the XLA encoder, systematic and
-    not, including the odd-batch padding path."""
+def _stage_encode(enc, x):
+    """Independent encode: uint8 XOR butterfly stages, both systematic
+    passes, from info bits that already carry their checksum."""
+    u = np.asarray(enc.inject(jnp.asarray(x, jnp.uint8)))
+    code = np.asarray(butterfly_transform(jnp.asarray(u)))
+    if enc.systematic:
+        code = np.where(enc.frozen_mask, 0, code).astype(np.uint8)
+        code = np.asarray(butterfly_transform(jnp.asarray(code)))
+    return code
+
+
+class TestKroneckerEncode:
+    """encode() (two GF(2) matrix products per transform) equals the
+    elementwise XOR butterfly stages bit for bit, systematic and not,
+    including an odd batch and a leading batch axis."""
 
     @pytest.mark.parametrize("n_len,k_len,systematic",
                              [(256, 128, True), (256, 128, False),
                               (64, 40, True)])
-    def test_interpret_matches_xla(self, n_len, k_len, systematic, rng):
-        from polar_codes_tpu.ops.butterfly_kernel import build_encode_kernel
+    def test_matches_stage_butterfly(self, n_len, k_len, systematic, rng):
         from polar_codes_tpu.models.detectors import CRC16
 
         frozen = frozen_bits(n_len, k_len, 0.0)
-        det = CRC16()
-        ref = PolarEncoder(n_len, frozen, systematic=systematic,
-                           detector=det)
-        pal = PolarEncoder(n_len, frozen, systematic=systematic,
-                           detector=det, backend="pallas")
-        pal._PALLAS_TILE = 16
-        pal._pallas_fn = build_encode_kernel(
-            n_len, pal.frozen_mask, systematic=systematic, batch_tile=16,
-            interpret=True,
-        )
-        info = rng.integers(0, 2, (37, k_len)).astype(np.uint8)
-        np.testing.assert_array_equal(
-            np.asarray(pal.encode(jnp.asarray(info))),
-            np.asarray(ref.encode(jnp.asarray(info))),
-        )
+        enc = PolarEncoder(n_len, frozen, systematic=systematic,
+                           detector=CRC16())
+        info = jnp.asarray(rng.integers(0, 2, (37, k_len)).astype(np.uint8))
+        got = np.asarray(jax.jit(enc.encode)(info))
+        want = _stage_encode(enc, enc.detector.generate(info))
+        np.testing.assert_array_equal(got, want)
+        lead = np.asarray(enc.encode(info[:36].reshape(4, 9, k_len)))
+        np.testing.assert_array_equal(lead.reshape(36, n_len), want[:36])
 
 
 class TestMxuEncode:
-    """Kronecker-factored MXU transform (ops/butterfly.py
-    polar_transform_mxu): bit-exact vs the stage butterfly, and the
-    encoder's large-N fast-path dispatch matches the XLA encoder."""
+    """Kronecker-factored matmul transform (ops/butterfly.py
+    polar_transform_mxu): bit-exact vs the stage butterfly, also through
+    the encoder at large N."""
 
     @pytest.mark.parametrize("n_len", [128, 1024, 4096])
     def test_transform_matches_butterfly(self, n_len, rng):
@@ -176,15 +180,13 @@ class TestMxuEncode:
         from polar_codes_tpu.models.detectors import CRC16
 
         frozen = frozen_bits(n_len, k_len, 0.0)
-        det = CRC16()
-        ref = PolarEncoder(n_len, frozen, systematic=systematic,
-                           detector=det)
-        fast = PolarEncoder(n_len, frozen, systematic=systematic,
-                            detector=det, backend="pallas")
+        enc = PolarEncoder(n_len, frozen, systematic=systematic,
+                           detector=CRC16())
         info = rng.integers(0, 2, (5, k_len)).astype(np.uint8)
+        x = enc.detector.generate(jnp.asarray(info))
         np.testing.assert_array_equal(
-            np.asarray(fast.encode(jnp.asarray(info))),
-            np.asarray(ref.encode(jnp.asarray(info))),
+            np.asarray(enc.encode(x, generate_crc=False)),
+            _stage_encode(enc, x),
         )
 
 

@@ -3,8 +3,8 @@
 Mirrors the reference's exhaustive 256x256 sign sweeps of the int8
 kernels (/root/reference/test/polarcode/decodingtest.cpp:850-910): every
 (a, b) int8 pair is checked against a scalar integer reference, for the
-int8 kernels and for the bf16-stored saturating variants the Pallas
-backends use (fip_char value parity is claimed exact, so test it
+int8 kernels and for the bf16-stored saturating variants the char paths
+use (fip_char value parity is claimed exact, so test it
 exhaustively, not statistically).
 """
 
@@ -49,7 +49,7 @@ class TestExhaustiveInt8:
         np.testing.assert_array_equal(np.asarray(got, np.int32), ref)
 
     def test_f_sat_bf16_matches_i8_all_pairs(self):
-        # the Pallas char path stores fip_char values in bf16; parity with
+        # the saturating char path stores fip_char values in bf16; parity with
         # the int8 kernels must be exact over the full live range
         a, b = _all_pairs(-127, 127)
         ref = f_minsum_i8(jnp.asarray(a, jnp.int8), jnp.asarray(b, jnp.int8))

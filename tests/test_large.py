@@ -40,52 +40,6 @@ class TestLargeSC:
         cw = np.asarray(dec.decode_to_codeword(jnp.asarray(llr)))
         np.testing.assert_array_equal(cw, cw_ref)
 
-    def test_pallas_chunk_kernel_matches_chunk_sc(self, rng):
-        """ops/large_kernel.py interpret mode is bit-exact vs the XLA
-        mask-driven chunk recursion, float and saturating-int8 families."""
-        from polar_codes_tpu.ops.large_kernel import (
-            build_masked_sc_chunk_kernel,
-        )
-
-        chunk = 64
-        for int8 in (False, True):
-            dec = LargeSCDecoder(
-                chunk, frozen_bits(chunk, 40, 0.0), chunk=chunk,
-                dtype=jnp.int8 if int8 else jnp.float32,
-            )
-            mask = rng.integers(0, 2, chunk).astype(bool)
-            llr = rng.normal(0, 2, (12, chunk)).astype(np.float32)
-            if int8:
-                llr = np.clip(np.round(llr * 8), -127, 127).astype(np.float32)
-            fn = build_masked_sc_chunk_kernel(
-                chunk, int8=int8, batch_tile=8, interpret=True
-            )
-            x_k, u_k = fn(jnp.asarray(llr), jnp.asarray(mask, jnp.float32))
-            x_x, u_x = dec._chunk_sc(jnp.asarray(llr), jnp.asarray(mask))
-            np.testing.assert_array_equal(np.asarray(x_k), np.asarray(x_x))
-            np.testing.assert_array_equal(np.asarray(u_k), np.asarray(u_x))
-
-    def test_pallas_backend_end_to_end_interpret(self, rng, monkeypatch):
-        """LargeSCDecoder(backend='pallas') equals the XLA backend through
-        the full outer scan (kernels forced to interpret mode)."""
-        import polar_codes_tpu.ops.large_kernel as lk
-
-        orig = lk.build_masked_sc_chunk_kernel
-        monkeypatch.setattr(
-            lk, "build_masked_sc_chunk_kernel",
-            lambda *a, **kw: orig(*a, **{**kw, "interpret": True,
-                                          "batch_tile": 8}),
-        )
-        n_len, k_len = 512, 300
-        frozen = frozen_bits(n_len, k_len, 0.0, "BB")
-        llr = rng.normal(0, 2, (8, n_len)).astype(np.float32)
-        dec_x = LargeSCDecoder(n_len, frozen, systematic=True, chunk=128)
-        dec_p = LargeSCDecoder(n_len, frozen, systematic=True, chunk=128,
-                               backend="pallas")
-        cw_x = np.asarray(dec_x.decode_to_codeword(jnp.asarray(llr)))
-        cw_p = np.asarray(dec_p.decode_to_codeword(jnp.asarray(llr)))
-        np.testing.assert_array_equal(cw_p, cw_x)
-
     def test_fast_chunks_cover_all_classes(self, rng):
         """A construction whose chunking produces every pure class, and
         the fast path still equals Fast-SSC bit-for-bit (f32 min-sum)."""
@@ -208,105 +162,6 @@ class TestLargeSCL:
             )
             best = np.argmax(mets[i])
             np.testing.assert_array_equal(us[i, best], u_ref[0])
-
-    def test_pallas_scl_chunk_kernel_matches_chunk_scl(self, rng):
-        """ops/large_kernel.py SCL chunk kernel (interpret) vs the XLA
-        per-bit fork recursion: identical bits, perm, and metrics."""
-        from polar_codes_tpu.ops.large_kernel import (
-            build_masked_scl_chunk_kernel,
-        )
-        from polar_codes_tpu.models.large import _NEG as _neg
-
-        chunk, n_list = 32, 4
-        for int8 in (False, True):
-            dec = LargeSCLDecoder(
-                chunk, frozen_bits(chunk, 20, 0.0), list_size=n_list,
-                chunk=chunk, dtype=jnp.int8 if int8 else jnp.float32,
-            )
-            mask = np.zeros(chunk, bool)
-            mask[frozen_bits(chunk, 20, 0.0)] = True
-            llr = rng.normal(0, 2, (4, n_list, chunk)).astype(np.float32)
-            if int8:
-                llr = np.clip(np.round(llr * 9), -127, 127).astype(
-                    np.float32
-                )
-            metrics = np.full((4, n_list), _neg, np.float32)
-            metrics[:, 0] = 0.0
-            fn = build_masked_scl_chunk_kernel(
-                chunk, n_list, int8=int8, batch_tile=4, interpret=True
-            )
-            b_k, p_k, m_k = fn(
-                jnp.asarray(llr), jnp.asarray(mask, jnp.float32),
-                jnp.asarray(metrics),
-            )
-            b_x, p_x, m_x = dec._chunk_scl(
-                jnp.asarray(llr), jnp.asarray(mask), jnp.asarray(metrics)
-            )
-            np.testing.assert_array_equal(np.asarray(p_k), np.asarray(p_x))
-            np.testing.assert_allclose(
-                np.asarray(m_k), np.asarray(m_x), atol=1e-5
-            )
-            np.testing.assert_array_equal(np.asarray(b_k), np.asarray(b_x))
-
-    def test_tree_schedule_pallas_matches_xla_interpret(self, rng,
-                                                        monkeypatch):
-        """The unrolled-tree schedule: shared-kernel (interpret) and
-        static-mask XLA chunk decodes are bit-identical through the
-        whole program."""
-        import polar_codes_tpu.ops.large_kernel as lk
-
-        orig = lk.build_masked_scl_chunk_kernel
-        monkeypatch.setattr(
-            lk, "build_masked_scl_chunk_kernel",
-            lambda *a, **kw: orig(*a, **{**kw, "interpret": True,
-                                          "batch_tile": 8}),
-        )
-        n_len, k_len = 512, 256
-        frozen = frozen_bits(n_len, k_len, 0.0, "BB")
-        det = CRC16()
-        kw = dict(list_size=4, systematic=True, detector=det, chunk=64)
-        dec_x = LargeSCLDecoder(n_len, frozen, schedule="tree", **kw)
-        dec_p = LargeSCLDecoder(n_len, frozen, backend="pallas",
-                                schedule="tree", **kw)
-        llr = rng.normal(0.7, 1.5, (8, n_len)).astype(np.float32)
-        cx, mx, _ = dec_x.decode_paths(jnp.asarray(llr))
-        cp, mp, _ = dec_p.decode_paths(jnp.asarray(llr))
-        np.testing.assert_array_equal(np.asarray(cp), np.asarray(cx))
-        np.testing.assert_allclose(np.asarray(mp), np.asarray(mx),
-                                   atol=1e-4)
-        ix, _, okx = dec_x.decode(jnp.asarray(llr))
-        ip, _, okp = dec_p.decode(jnp.asarray(llr))
-        np.testing.assert_array_equal(np.asarray(ip), np.asarray(ix))
-        np.testing.assert_array_equal(np.asarray(okp), np.asarray(okx))
-
-    def test_pallas_scl_backend_end_to_end_interpret(self, rng, monkeypatch):
-        """LargeSCLDecoder(backend='pallas', schedule='scan') equals the
-        XLA backend through the outer scan, CRC-aided decode included
-        (interpret kernels)."""
-        import polar_codes_tpu.ops.large_kernel as lk
-
-        orig = lk.build_masked_scl_chunk_kernel
-        monkeypatch.setattr(
-            lk, "build_masked_scl_chunk_kernel",
-            lambda *a, **kw: orig(*a, **{**kw, "interpret": True,
-                                          "batch_tile": 8}),
-        )
-        n_len, k_len = 256, 128
-        frozen = frozen_bits(n_len, k_len, 0.0, "BB")
-        det = CRC16()
-        kw = dict(list_size=4, systematic=True, detector=det, chunk=64)
-        dec_x = LargeSCLDecoder(n_len, frozen, **kw)
-        dec_p = LargeSCLDecoder(n_len, frozen, backend="pallas",
-                                schedule="scan", **kw)
-        llr = rng.normal(0.7, 1.5, (8, n_len)).astype(np.float32)
-        cx, mx, _ = dec_x.decode_paths(jnp.asarray(llr))
-        cp, mp, _ = dec_p.decode_paths(jnp.asarray(llr))
-        np.testing.assert_array_equal(np.asarray(cp), np.asarray(cx))
-        np.testing.assert_allclose(np.asarray(mp), np.asarray(mx), atol=1e-4)
-        ix, cwx, okx = dec_x.decode(jnp.asarray(llr))
-        ip, cwp, okp = dec_p.decode(jnp.asarray(llr))
-        np.testing.assert_array_equal(np.asarray(ip), np.asarray(ix))
-        np.testing.assert_array_equal(np.asarray(okp), np.asarray(okx))
 
     def test_ca_scl_roundtrip_noisy(self, rng):
         """(1024,512) CA-SCL-8 CRC16 at ~2 dB: bitwise SCL must be at

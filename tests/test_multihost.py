@@ -1,12 +1,12 @@
 """Multi-host (2-process) data parallelism test.
 
 The reference has no distributed backend (SURVEY.md section 2.10); the
-TPU-native replacement is a process-spanning mesh. Real pods are not
+replacement here is a process-spanning mesh. Real clusters are not
 available in CI, so this spawns TWO separate processes, each with 4 virtual
 CPU devices, wires them with jax.distributed, builds the global 8-device
 mesh, and runs one mesh-sharded Monte-Carlo counter step — validating the
 exact code path (init_distributed / default_mesh / distribute_keys /
-sharded_counter_step / host_aggregate) a 2-host pod would execute, with
+sharded_counter_step / host_aggregate) a 2-host cluster would execute, with
 psum crossing the process boundary.
 """
 

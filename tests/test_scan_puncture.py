@@ -73,62 +73,6 @@ class TestScan:
         np.testing.assert_array_equal(np.asarray(decoded)[:, :-8], info[:, :-8])
 
 
-class TestScanPallasKernel:
-    """Fused VMEM SCAN kernels (ops/scan_kernel.py): interpret-mode
-    bit-exactness vs the XLA sweep recursion."""
-
-    @pytest.mark.parametrize("n_len,k_len,sweeps", [(64, 40, 1), (128, 64, 3)])
-    def test_fused_matches_xla(self, n_len, k_len, sweeps, rng):
-        from polar_codes_tpu.ops.scan_kernel import build_scan_kernel
-
-        frozen = frozen_bits(n_len, k_len, 0.0)
-        dec = ScanDecoder(n_len, frozen, iterations=sweeps)
-        fn = build_scan_kernel(dec, sweeps, batch_tile=8, interpret=True)
-        llr = jnp.asarray(rng.normal(0, 2, (12, n_len)), jnp.float32)
-        beta_k = fn(llr)  # exercises batch padding (12 -> 16)
-        _, beta_x = dec.decode_soft(llr)
-        np.testing.assert_array_equal(np.asarray(beta_k), np.asarray(beta_x))
-
-    def test_stepped_matches_xla_sweep_by_sweep(self, rng):
-        from polar_codes_tpu.ops.scan_kernel import build_scan_step_kernel
-
-        n_len, k_len = 64, 40
-        frozen = frozen_bits(n_len, k_len, 0.0)
-        dec = ScanDecoder(n_len, frozen)
-        fn = build_scan_step_kernel(dec, batch_tile=8, interpret=True)
-        llr = jnp.asarray(rng.normal(0, 2, (8, n_len)), jnp.float32)
-        mem = None
-        for sweeps in (1, 2, 3):
-            beta_k, mem = fn(llr, mem)
-            _, beta_x = dec.decode_soft(llr, iterations=sweeps)
-            np.testing.assert_array_equal(
-                np.asarray(beta_k), np.asarray(beta_x)
-            )
-
-    def test_fastsscan_pallas_backend_interpret(self, rng, monkeypatch):
-        """FastSScanDecoder(backend='pallas') end-to-end equals the XLA
-        backend (interpret-mode kernels forced)."""
-        import polar_codes_tpu.ops.scan_kernel as sk
-
-        orig = sk.build_scan_step_kernel
-        monkeypatch.setattr(
-            sk, "build_scan_step_kernel",
-            lambda dec, **kw: orig(dec, interpret=True, **kw),
-        )
-        n_len, k_len = 64, 40
-        frozen = frozen_bits(n_len, k_len, 0.0)
-        det = CRC8()
-        kw = dict(systematic=True, detector=det, iterations=3)
-        dec_x = FastSScanDecoder(n_len, frozen, **kw)
-        dec_p = FastSScanDecoder(n_len, frozen, backend="pallas", **kw)
-        llr = jnp.asarray(rng.normal(0.5, 1.5, (16, n_len)), jnp.float32)
-        ix, cx, okx = dec_x.decode(llr)
-        ip, cp, okp = dec_p.decode(llr)
-        np.testing.assert_array_equal(np.asarray(cx), np.asarray(cp))
-        np.testing.assert_array_equal(np.asarray(ix), np.asarray(ip))
-        np.testing.assert_array_equal(np.asarray(okx), np.asarray(okp))
-
-
 class TestPuncturer:
     def test_round_up(self):
         assert round_up_power_of_two(1) == 1

@@ -168,8 +168,8 @@ class TestAnalysis:
         assert merged[0]["Runs"] == 4000
 
     def test_parse_bench_name(self):
-        got = tools.parse_bench_name("cascl_pallas_n1024_l8_crc0")
-        assert got == {"family": "cascl", "dtype": "pallas", "N": 1024,
+        got = tools.parse_bench_name("cascl_char_n1024_l8_crc0")
+        assert got == {"family": "cascl", "dtype": "char", "N": 1024,
                        "L": 8, "variant": "crc0"}
         got = tools.parse_bench_name("encode_n131072_crc16")
         assert got == {"family": "encode", "dtype": "float", "N": 131072,
@@ -180,12 +180,12 @@ class TestAnalysis:
 
         path_a = os.path.join(tmp_path, "a.jsonl")
         path_b = os.path.join(tmp_path, "b.jsonl")
-        rows_a = [dict(bench="cascl_pallas_n1024_l8", N=1024, K=512,
+        rows_a = [dict(bench="cascl_char_n1024_l8", N=1024, K=512,
                        info_thr_mbps=800.0),
                   dict(bench="flaky_row", error="boom"),
                   dict(bench="flaky_row", N=64, K=32,
                        info_thr_mbps=5.0)]
-        rows_b = [dict(bench="cascl_pallas_n1024_l8", N=1024, K=512,
+        rows_b = [dict(bench="cascl_char_n1024_l8", N=1024, K=512,
                        info_thr_mbps=1200.0)]
         with open(path_a, "w") as fh:
             fh.write("\n".join(_json.dumps(r) for r in rows_a))
